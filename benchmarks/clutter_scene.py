@@ -6,7 +6,7 @@ The reference's object service works over 4 captured object classes
 the same character: four distinct rigid shapes with analytically
 ray-cast depth, full-surface ICP templates, and exact GT poses written
 through the same transforms.txt protocol
-(``perception_tpu/io/gt_transforms.py``).
+(``perception/io/gt_transforms.py``).
 
 Each class is a list of primitives (box | cylinder) with local offsets,
 so compound shapes (the clamp's L) are supported.
@@ -20,9 +20,9 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from perception_tpu.geometry import se3
-from perception_tpu.geometry.camera import PinholeCamera
-from perception_tpu.io.templates import (
+from perception.geometry import se3
+from perception.geometry.camera import PinholeCamera
+from perception.io.templates import (
     box_surface_template,
     cylinder_surface_template,
 )

@@ -1,6 +1,6 @@
 """Map-mode recency-decay sweep: measure fps/ATE vs map_decay.
 
-Run on the live chip:  python -m benchmarks.decay_sweep
+Run on the GPU:  python -m benchmarks.decay_sweep
 Each row is a full 300-frame 640x480 SLAM run (BA on, 32k map) through
 benchmarks.slam_bench.run with only map_decay / map_voxel varied.
 """

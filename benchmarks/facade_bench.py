@@ -19,17 +19,16 @@ def run(frames: int = 120, hw=(256, 256)) -> dict:
     import jax.numpy as jnp
     import numpy as np
 
-    from perception_tpu.models import face_fixture as FF
-    from perception_tpu.models import hand_fixture as HF
-    from perception_tpu.models import pose_fixture as PF
-    from perception_tpu.models.face_data import render_faces, sample_face_at
-    from perception_tpu.wrapper import (
+    from perception.models import face_fixture as FF
+    from perception.models import hand_fixture as HF
+    from perception.models import pose_fixture as PF
+    from perception.models.face_data import render_faces, sample_face_at
+    from perception.wrapper import (
         Perception,
         WrapperStructFace,
         WrapperStructHand,
         WrapperStructPose,
     )
-    from benchmarks.timing import sync
 
     if not (PF.fixture_available() and FF.fixture_available()
             and HF.fixture_available()):
@@ -66,19 +65,19 @@ def run(frames: int = 120, hw=(256, 256)) -> dict:
         )
         for t in range(8)
     ]
-    sync(imgs[-1])
+    jax.block_until_ready(imgs[-1])
 
     # Warm the compile, then time the steady-state dispatch loop.
     d = engine.emplace_and_pop(imgs[0], frame_index=0)
-    sync(d.people.keypoints)
+    jax.block_until_ready(d.people.keypoints)
     n_faces = int(np.asarray(d.faces["mask"]).sum())
 
     t0 = time.perf_counter()
     last = None
     for t in range(frames):
         last = engine.emplace_and_pop(imgs[t % len(imgs)], frame_index=t + 1)
-    sync(last.people.keypoints)
-    sync(last.faces["landmarks"])
+    jax.block_until_ready(last.people.keypoints)
+    jax.block_until_ready(last.faces["landmarks"])
     dt = time.perf_counter() - t0
     return {
         "facade_fps": frames / dt,

@@ -1,8 +1,8 @@
-"""Per-extractor facade latency breakdown on the live chip.
+"""Per-extractor facade latency breakdown on the GPU.
 
 Times the wrapper's jitted step with each extractor subset enabled
 (pose / face / hands / all) on the same 256x256 3-face scene, so the
-45-50 fps all-on number decomposes into its stages.
+all-on frame time decomposes into its stages.
 
 Run: python -m benchmarks.facade_profile
 """
@@ -18,16 +18,15 @@ def time_engine(pose=False, face=False, hand=False, frames=60):
     import jax.numpy as jnp
     import numpy as np
 
-    from perception_tpu.models import face_fixture as FF
-    from perception_tpu.models import pose_fixture as PF
-    from perception_tpu.models.face_data import render_faces, sample_face_at
-    from perception_tpu.wrapper import (
+    from perception.models import face_fixture as FF
+    from perception.models import pose_fixture as PF
+    from perception.models.face_data import render_faces, sample_face_at
+    from perception.wrapper import (
         Perception,
         WrapperStructFace,
         WrapperStructHand,
         WrapperStructPose,
     )
-    from benchmarks.timing import sync
 
     hw = (256, 256)
     engine = Perception(
@@ -56,13 +55,13 @@ def time_engine(pose=False, face=False, hand=False, frames=60):
         )
         for t in range(8)
     ]
-    sync(imgs[-1])
+    jax.block_until_ready(imgs[-1])
     d = engine.emplace_and_pop(imgs[0], frame_index=0)
     for probe in (getattr(d.people, "keypoints", None) if d.people else None,
                   d.faces["landmarks"] if d.faces else None,
                   d.hands["landmarks"] if d.hands else None):
         if probe is not None:
-            sync(probe)
+            jax.block_until_ready(probe)
     t0 = time.perf_counter()
     last = None
     for t in range(frames):
@@ -71,7 +70,7 @@ def time_engine(pose=False, face=False, hand=False, frames=60):
                   last.faces["landmarks"] if last.faces else None,
                   last.hands["landmarks"] if last.hands else None):
         if probe is not None:
-            sync(probe)
+            jax.block_until_ready(probe)
     dt = time.perf_counter() - t0
     return 1000.0 * dt / frames
 

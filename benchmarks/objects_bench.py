@@ -24,8 +24,8 @@ def run(classes=("eraser", "screwdriver", "clamp", "marker")) -> dict:
         render_depth_clutter,
         standard_clutter_poses,
     )
-    from perception_tpu.geometry.camera import PinholeCamera
-    from perception_tpu.models.objects import ObjectConfig, detect_object
+    from perception.geometry.camera import PinholeCamera
+    from perception.models.objects import ObjectConfig, detect_object
 
     cam = PinholeCamera.d435_depth()
     poses = standard_clutter_poses()

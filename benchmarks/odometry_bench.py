@@ -17,9 +17,9 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from perception_tpu.geometry import se3
-    from perception_tpu.geometry.camera import PinholeCamera
-    from perception_tpu.models.slam.odometry import (
+    from perception.geometry import se3
+    from perception.geometry.camera import PinholeCamera
+    from perception.models.slam.odometry import (
         OdometryConfig,
         init_state,
         odometry_step,
@@ -61,40 +61,26 @@ def main() -> None:
 
     import dataclasses
 
-    # Both regimes, both paths (see OdometryConfig.fused_gn): measured
-    # end-to-end on v5e the jnp op-graph wins at every tested shape —
-    # brute NN is HBM-bound in the op-graph and padded-MXU-depth-bound
-    # in the kernel, roughly tied per iteration, and XLA fuses the rest
-    # of the GN body for free — so "auto" is the op-graph and this
-    # bench documents the margin rather than asserting it.
-    results = {}
+    # Both target regimes: the default keyframe budget and a 32k one.
     for pt_budget, kf_budget in ((cfg.point_budget, cfg.keyframe_budget),
                                  (8192, 32768)):
-        for mode in ("off", "on"):
-            cfg_m = dataclasses.replace(
-                cfg, fused_gn=mode, point_budget=pt_budget,
-                keyframe_budget=kf_budget,
-            )
-            state = init_state(cam, frames[0], cfg_m)
-            state, diag = odometry_step(state, frames[1], cam, cfg_m)
-            jax.block_until_ready(state)
-            print(f"warmup[{mode}] overlap={float(diag.overlap):.2f}",
-                  file=sys.stderr)
+        cfg_m = dataclasses.replace(
+            cfg, point_budget=pt_budget, keyframe_budget=kf_budget,
+        )
+        state = init_state(cam, frames[0], cfg_m)
+        state, diag = odometry_step(state, frames[1], cam, cfg_m)
+        jax.block_until_ready(state)
+        print(f"warmup overlap={float(diag.overlap):.2f}", file=sys.stderr)
 
-            n_timed = 40
-            t0 = time.perf_counter()
-            for i in range(n_timed):
-                state, diag = odometry_step(state, frames[i % 10], cam, cfg_m)
-            jax.block_until_ready(state)
-            dt = time.perf_counter() - t0
-            results[(kf_budget, mode)] = n_timed / dt
-            label = "jnp op-graph" if mode == "off" else "pallas fused GN"
-            auto = "auto->op-graph"
-            print(f"odometry[{label}]: {n_timed / dt:.1f} frames/s "
-                  f"({dt / n_timed * 1000:.2f} ms/frame) at 640x480, "
-                  f"budget={pt_budget} pts vs kf {kf_budget} ({auto})")
-        print(f"fused speedup at {pt_budget}x{kf_budget}: "
-              f"{results[(kf_budget, 'on')] / results[(kf_budget, 'off')]:.2f}x")
+        n_timed = 40
+        t0 = time.perf_counter()
+        for i in range(n_timed):
+            state, diag = odometry_step(state, frames[i % 10], cam, cfg_m)
+        jax.block_until_ready(state)
+        dt = time.perf_counter() - t0
+        print(f"odometry: {n_timed / dt:.1f} frames/s "
+              f"({dt / n_timed * 1000:.2f} ms/frame) at 640x480, "
+              f"budget={pt_budget} pts vs kf {kf_budget}")
 
 
 if __name__ == "__main__":

@@ -23,13 +23,12 @@ def run(net_hw=(368, 368), topology: str = "BODY_25", batch: int = 8,
     import jax.numpy as jnp
     import numpy as np
 
-    from perception_tpu.models.pose import (
+    from perception.models.pose import (
         PoseNet,
         extract_people,
         lookup_topology,
     )
-    from perception_tpu.ops.heatmap import nms_heatmap, resize_and_merge
-    from benchmarks.timing import sync
+    from perception.ops.heatmap import nms_heatmap, resize_and_merge
 
     parts, pairs = lookup_topology(topology)
     P, L = len(parts), len(pairs)
@@ -41,11 +40,11 @@ def run(net_hw=(368, 368), topology: str = "BODY_25", batch: int = 8,
 
     def timed(f, *a, probe=None, n=reps):
         out = f(*a)
-        sync(probe(out) if probe else out)
+        jax.block_until_ready(probe(out) if probe else out)
         t0 = time.perf_counter()
         for _ in range(n):
             out = f(*a)
-        sync(probe(out) if probe else out)
+        jax.block_until_ready(probe(out) if probe else out)
         return 1000.0 * (time.perf_counter() - t0) / n
 
     # Stage 1: resize+merge at the reference's published shape — the

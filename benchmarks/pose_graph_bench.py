@@ -16,8 +16,8 @@ def run(n_nodes: int = 256, n_edges: int = 768, iterations: int = 10) -> dict:
     import jax.numpy as jnp
     import numpy as np
 
-    from perception_tpu.geometry import se3
-    from perception_tpu.models.slam.backend import PoseGraph, optimize_pose_graph
+    from perception.geometry import se3
+    from perception.models.slam.backend import PoseGraph, optimize_pose_graph
 
     rng = np.random.default_rng(0)
     # Ground-truth poses on a loop; noisy odometry chain + loop edges.

@@ -8,9 +8,9 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from perception_tpu.geometry import se3
-from perception_tpu.geometry.camera import PinholeCamera
-from perception_tpu.io.templates import cuboid_template
+from perception.geometry import se3
+from perception.geometry.camera import PinholeCamera
+from perception.io.templates import cuboid_template
 
 
 def render_depth_tabletop(

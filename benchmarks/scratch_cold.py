@@ -1,6 +1,6 @@
 import numpy as np, jax, jax.numpy as jnp
 from benchmarks.timing import bench_ms
-from perception_tpu.ops import voxelhash
+from perception.ops import voxelhash
 
 rng = np.random.RandomState(0)
 m, nq = 32768, 307200

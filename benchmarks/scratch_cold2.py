@@ -1,6 +1,6 @@
 import numpy as np, jax, jax.numpy as jnp
 from benchmarks.timing import bench_ms
-from perception_tpu.ops import voxelhash
+from perception.ops import voxelhash
 from scipy.spatial import cKDTree
 
 rng = np.random.RandomState(0)

@@ -56,7 +56,7 @@ def sweep_trajectory(n=300, x_amp=0.5, y_amp=0.15, yaw_amp=0.08, cycles=2.0):
     ``cycles`` times — plenty of loop-closure opportunities."""
     import jax.numpy as jnp
 
-    from perception_tpu.geometry import se3
+    from perception.geometry import se3
 
     Ts = []
     for k in range(n):

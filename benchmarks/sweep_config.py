@@ -1,4 +1,4 @@
-"""Sweep cuboid-pipeline capacities/restarts on the live chip:
+"""Sweep cuboid-pipeline capacities/restarts on the GPU:
 acceptance across all bench scenes (must stay 1.00) + steady-state fps.
 """
 
@@ -14,7 +14,7 @@ import numpy as np
 
 
 def run_variant(name, config, camera, template_np, frames):
-    from perception_tpu.models.cuboid import cuboid_pipeline_from_depth, template_features
+    from perception.models.cuboid import cuboid_pipeline_from_depth, template_features
 
     template, tnormals, tmask = template_features(
         template_np, np.ones(len(template_np), bool), config
@@ -47,8 +47,8 @@ def run_variant(name, config, camera, template_np, frames):
 
 
 def main():
-    from perception_tpu.geometry.camera import PinholeCamera
-    from perception_tpu.models.cuboid import CuboidConfig
+    from perception.geometry.camera import PinholeCamera
+    from perception.models.cuboid import CuboidConfig
     from benchmarks.scene import render_depth_tabletop, benchmark_template
 
     camera = PinholeCamera.d435_depth()

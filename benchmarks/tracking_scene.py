@@ -16,7 +16,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from perception_tpu.geometry import se3
+from perception.geometry import se3
 from benchmarks.clutter_scene import _raycast_box
 
 # (dims, world pose twist) per tracked cuboid: distinct sizes so the

@@ -22,8 +22,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from perception_tpu.io.templates import cuboid_template  # noqa: E402
-from perception_tpu.models.cuboid import (  # noqa: E402
+from perception.io.templates import cuboid_template  # noqa: E402
+from perception.models.cuboid import (  # noqa: E402
     CuboidConfig,
     cuboid_pipeline_from_depth,
     template_features,

@@ -19,8 +19,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from perception_tpu.io.templates import cuboid_template  # noqa: E402
-from perception_tpu.models.objects import ObjectConfig, detect_object  # noqa: E402
+from perception.io.templates import cuboid_template  # noqa: E402
+from perception.models.objects import ObjectConfig, detect_object  # noqa: E402
 from benchmarks.scene import render_depth_tabletop  # noqa: E402
 
 

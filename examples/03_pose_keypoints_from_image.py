@@ -23,12 +23,12 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from perception_tpu.models.pose import (  # noqa: E402
+from perception.models.pose import (  # noqa: E402
     TOPOLOGIES,
     extract_people,
     init_posenet,
 )
-from perception_tpu.utils.keypoints import keep_top_n_people  # noqa: E402
+from perception.utils.keypoints import keep_top_n_people  # noqa: E402
 
 
 def main() -> None:
@@ -57,7 +57,7 @@ def main() -> None:
           f"of capacity {top_kp.shape[0]}")
 
     # --- part 2: trained fixture -> real skeletons from a real image ---
-    from perception_tpu.models.pose_fixture import (
+    from perception.models.pose_fixture import (
         FIXTURE_HW,
         evaluate_pck,
         fixture_available,
@@ -80,7 +80,7 @@ def main_facade() -> None:
     the reference Wrapper::emplaceAndPop flow in a few lines."""
     import numpy as np
 
-    from perception_tpu.wrapper import (
+    from perception.wrapper import (
         Perception,
         WrapperStructInput,
         WrapperStructPose,

@@ -22,8 +22,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from perception_tpu.geometry import se3  # noqa: E402
-from perception_tpu.models.face import (  # noqa: E402
+from perception.geometry import se3  # noqa: E402
+from perception.models.face import (  # noqa: E402
     PNP_LANDMARK_IDS,
     PNP_MODEL_POINTS,
     gaze_from_landmarks,
@@ -37,7 +37,7 @@ def main() -> None:
     cx, cy = 320.0, 240.0
 
     # --- image-based face detection (no pose input) --------------------
-    from perception_tpu.models.face_detect import detect_faces
+    from perception.models.face_detect import detect_faces
     from tests.test_face_detect import render_face
 
     img, gt_box = render_face(H=240, W=320, cx=160, cy=120, size=48)
@@ -98,10 +98,10 @@ def main_facade() -> None:
     the trained fixtures when present."""
     import numpy as np
 
-    from perception_tpu.models import face_fixture as FF
-    from perception_tpu.models import hand_fixture as HF
-    from perception_tpu.models import pose_fixture as PF
-    from perception_tpu.wrapper import (
+    from perception.models import face_fixture as FF
+    from perception.models import hand_fixture as HF
+    from perception.models import pose_fixture as PF
+    from perception.wrapper import (
         Perception,
         WrapperStructFace,
         WrapperStructHand,

@@ -18,11 +18,11 @@ setup_backend()
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from perception_tpu.geometry import se3  # noqa: E402
-from perception_tpu.geometry.camera import PinholeCamera  # noqa: E402
-from perception_tpu.models.slam.odometry import OdometryConfig  # noqa: E402
-from perception_tpu.models.slam.system import SlamConfig, run_slam  # noqa: E402
-from perception_tpu.utils.metrics import ate  # noqa: E402
+from perception.geometry import se3  # noqa: E402
+from perception.geometry.camera import PinholeCamera  # noqa: E402
+from perception.models.slam.odometry import OdometryConfig  # noqa: E402
+from perception.models.slam.system import SlamConfig, run_slam  # noqa: E402
+from perception.utils.metrics import ate  # noqa: E402
 
 
 def render_textured_room(camera, T_wc, seed=0):

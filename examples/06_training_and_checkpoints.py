@@ -20,8 +20,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from perception_tpu.models.pose import PoseNet, TOPOLOGIES, init_posenet  # noqa: E402
-from perception_tpu.models.train import (  # noqa: E402
+from perception.models.pose import PoseNet, TOPOLOGIES, init_posenet  # noqa: E402
+from perception.models.train import (  # noqa: E402
     init_train_state,
     make_optimizer,
     make_train_step,

@@ -1,11 +1,11 @@
-"""Example 07 — multi-chip sharding on a virtual device mesh.
+"""Example 07 — multi-device sharding on a virtual device mesh.
 
 The distributed runtime (no reference equivalent — Caffe's NCCL was
 single-host data-parallel only): a (dp, sp) `jax.sharding.Mesh`, frames
 sharded over dp and points over sp, point-to-plane GN-ICP with the 6x6
 normal equations psum-reduced over the mesh under `shard_map`. Runs on
-8 virtual CPU devices here; the identical code runs over ICI on a real
-TPU slice.
+8 virtual CPU devices here; the identical code runs over the cards of
+a multi-GPU host.
 """
 
 import sys
@@ -19,10 +19,10 @@ setup_backend()
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from perception_tpu.geometry import se3  # noqa: E402
-from perception_tpu.ops.normals import normals_knn  # noqa: E402
-from perception_tpu.parallel.icp_dist import make_distributed_icp_step  # noqa: E402
-from perception_tpu.parallel.mesh import frame_sharding, make_mesh  # noqa: E402
+from perception.geometry import se3  # noqa: E402
+from perception.ops.normals import normals_knn  # noqa: E402
+from perception.parallel.icp_dist import make_distributed_icp_step  # noqa: E402
+from perception.parallel.mesh import frame_sharding, make_mesh  # noqa: E402
 
 
 def main() -> None:

@@ -17,9 +17,9 @@ setup_backend()
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from perception_tpu.geometry.camera import PinholeCamera  # noqa: E402
-from perception_tpu.geometry.stereo import StereoCamera  # noqa: E402
-from perception_tpu.io.imgcodec import (  # noqa: E402
+from perception.geometry.camera import PinholeCamera  # noqa: E402
+from perception.geometry.stereo import StereoCamera  # noqa: E402
+from perception.io.imgcodec import (  # noqa: E402
     array_to_image,
     convert_color,
     cvt_color_for_display,

@@ -28,12 +28,12 @@ from benchmarks.clutter_scene import (  # noqa: E402
     render_depth_clutter,
     standard_clutter_poses,
 )
-from perception_tpu.geometry.camera import PinholeCamera  # noqa: E402
-from perception_tpu.io.gt_transforms import (  # noqa: E402
+from perception.geometry.camera import PinholeCamera  # noqa: E402
+from perception.io.gt_transforms import (  # noqa: E402
     load_gt_transforms,
     save_gt_transforms,
 )
-from perception_tpu.models.objects import ObjectConfig, detect_object  # noqa: E402
+from perception.models.objects import ObjectConfig, detect_object  # noqa: E402
 
 
 def main() -> None:

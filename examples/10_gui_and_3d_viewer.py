@@ -18,11 +18,11 @@ setup_backend()
 
 import numpy as np  # noqa: E402
 
-from perception_tpu.geometry.camera import PinholeCamera  # noqa: E402
-from perception_tpu.io.gui import FrameDisplayer, Gui, Gui3D  # noqa: E402
-from perception_tpu.io.savers import VideoWriter  # noqa: E402
+from perception.geometry.camera import PinholeCamera  # noqa: E402
+from perception.io.gui import FrameDisplayer, Gui, Gui3D  # noqa: E402
+from perception.io.savers import VideoWriter  # noqa: E402
 from benchmarks.scene import render_depth_tabletop  # noqa: E402
-from perception_tpu.models.viz import depth_to_vis  # noqa: E402
+from perception.models.viz import depth_to_vis  # noqa: E402
 
 
 def main() -> None:
@@ -80,7 +80,7 @@ def main_facade() -> None:
     producer -> extractor -> displayer flow in a few lines."""
     import numpy as np
 
-    from perception_tpu.wrapper import (
+    from perception.wrapper import (
         Perception,
         WrapperStructGui,
         WrapperStructInput,

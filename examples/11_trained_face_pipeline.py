@@ -27,15 +27,15 @@ import numpy as np  # noqa: E402
 
 
 def main() -> None:
-    from perception_tpu.models import face_fixture as FF
-    from perception_tpu.models.face import (
+    from perception.models import face_fixture as FF
+    from perception.models.face import (
         au_gated_pose_mask,
         gaze_from_landmarks,
         head_pose_pnp,
         normalize_landmarks,
     )
-    from perception_tpu.models.face_data import render_face, sample_face
-    from perception_tpu.models.hand import crop_image
+    from perception.models.face_data import render_face, sample_face
+    from perception.models.hand import crop_image
 
     if not FF.fixture_available():
         print("face fixture missing — run tools/train_face_fixture.py")
@@ -88,8 +88,8 @@ def main_facade() -> None:
     """The trained face pipeline through the Perception facade."""
     import numpy as np
 
-    from perception_tpu.models import face_fixture as FF
-    from perception_tpu.wrapper import (
+    from perception.models import face_fixture as FF
+    from perception.wrapper import (
         Perception,
         WrapperStructFace,
         WrapperStructPose,

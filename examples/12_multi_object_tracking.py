@@ -22,10 +22,10 @@ import numpy as np  # noqa: E402
 
 
 def main() -> None:
-    from perception_tpu.geometry.camera import PinholeCamera
-    from perception_tpu.io.templates import cuboid_template
-    from perception_tpu.models.objects import ObjectConfig
-    from perception_tpu.models.object_tracking import (
+    from perception.geometry.camera import PinholeCamera
+    from perception.io.templates import cuboid_template
+    from perception.models.objects import ObjectConfig
+    from perception.models.object_tracking import (
         TrackingConfig,
         init_tracks,
         track_step_from_depth,

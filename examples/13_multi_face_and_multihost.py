@@ -8,7 +8,7 @@ frames by the slot tracker — per-face landmarks, head pose, gaze, AU02
 gate, all (max_faces, ...) arrays from ONE jitted dispatch.
 
 Part B shows the multi-host bootstrap surface (parallel/multihost.py):
-the same `initialize()` call a TPU pod would make, demonstrated here by
+the same `initialize()` call a GPU cluster would make, demonstrated here by
 spawning the 2-process localhost CPU fleet used by tests/test_multihost
 (skipped automatically if the fixture trainings are absent or the
 spawn is unavailable).
@@ -29,9 +29,9 @@ import numpy as np  # noqa: E402
 
 
 def main() -> None:
-    from perception_tpu.models import face_fixture as FF
-    from perception_tpu.models.face_data import render_faces, sample_face_at
-    from perception_tpu.wrapper import (
+    from perception.models import face_fixture as FF
+    from perception.models.face_data import render_faces, sample_face_at
+    from perception.wrapper import (
         Perception,
         WrapperStructFace,
         WrapperStructPose,

@@ -3,7 +3,7 @@
 The examples default to the CPU backend so they run anywhere (and the
 test suite can smoke-run them, the way the reference CI smoke-runs its
 tutorials at tiny net resolution — openpose scripts/travis/run_tests.sh).
-Set ``PERCEPTION_TPU_EXAMPLES_DEVICE=tpu`` to run on the real chip.
+Set ``PERCEPTION_EXAMPLES_DEVICE=gpu`` to run on the GPU.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import numpy as np
 
 
 def setup_backend() -> None:
-    if os.environ.get("PERCEPTION_TPU_EXAMPLES_DEVICE", "cpu") == "cpu":
+    if os.environ.get("PERCEPTION_EXAMPLES_DEVICE", "cpu") == "cpu":
         flags = os.environ.get("XLA_FLAGS", "")
         if "host_platform_device_count" not in flags:
             os.environ["XLA_FLAGS"] = (
@@ -27,7 +27,7 @@ def setup_backend() -> None:
 
 def small_camera(width: int = 160, height: int = 120):
     """D435 depth intrinsics scaled down 4x — keeps example compiles fast."""
-    from perception_tpu.geometry.camera import PinholeCamera
+    from perception.geometry.camera import PinholeCamera
 
     d435 = PinholeCamera.d435_depth()
     s = width / d435.width

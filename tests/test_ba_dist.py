@@ -5,9 +5,9 @@ import pytest
 
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from perception_tpu.models.slam.backend import bundle_adjust
-from perception_tpu.parallel.ba_dist import make_distributed_ba_step
-from perception_tpu.parallel.mesh import make_mesh
+from perception.models.slam.backend import bundle_adjust
+from perception.parallel.ba_dist import make_distributed_ba_step
+from perception.parallel.mesh import make_mesh
 
 from test_backend import FX, FY, CX, CY, make_ba_problem
 

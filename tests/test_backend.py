@@ -1,17 +1,23 @@
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from perception_tpu.geometry import se3
-from perception_tpu.models.slam.backend import (
+from perception.geometry import se3
+from perception.models.slam.backend import (
     BAProblem,
     PoseGraph,
+    _proj_residuals,
     bundle_adjust,
     optimize_pose_graph,
+    scale_gauge,
 )
 
 FX, FY, CX, CY = 525.0, 525.0, 319.5, 239.5
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def make_ba_problem(M=4, L=60, noise_px=0.3, pose_noise=0.02, lm_noise=0.02, seed=0):
@@ -81,6 +87,53 @@ def test_ba_respects_obs_mask():
     masked = problem._replace(obs_uv=bad_uv, obs_mask=jnp.arange(O) >= O // 2)
     res = bundle_adjust(masked, FX, FY, CX, CY, iterations=12)
     assert float(res.final_cost) < 2.0
+
+
+def _window_problem(depth=False):
+    sys.path.insert(0, REPO)
+    import __graft_entry__
+
+    return __graft_entry__.ba_window_problem(depth=depth)
+
+
+def test_scale_gauge_is_a_flat_direction():
+    # Move the window off the origin so camera 0's centre and rotation
+    # are not trivial, then scale the world about that centre: moving
+    # each camera along scale_gauge and each landmark away from the
+    # centre by the same factor must leave every residual unchanged.
+    problem, cam = _window_problem()
+    A = np.asarray(se3.se3_exp(jnp.asarray([0.4, -0.3, 0.2, 0.1, -0.2, 0.3], jnp.float32)))
+    poses = np.einsum("ij,kjl->kil", A, np.asarray(problem.poses_wc))
+    lms = np.asarray(problem.landmarks) @ A[:3, :3].T + A[:3, 3]
+    T_cw = se3.inverse(jnp.asarray(poses))
+    g = np.asarray(scale_gauge(T_cw))
+    assert np.abs(g[0]).max() < 1e-5 and np.abs(g[:, 3:]).max() == 0.0
+    s = 0.05
+    T_s = np.array(T_cw)
+    T_s[:, :3, 3] += s * g[:, :3]
+    C0 = poses[0, :3, 3]
+    lms_s = lms + s * (lms - C0)
+    args = (problem.obs_pose, problem.obs_lm, problem.obs_uv, problem.obs_mask) + cam
+    r0, _, _ = _proj_residuals(T_cw, jnp.asarray(lms), *args)
+    r1, _, _ = _proj_residuals(jnp.asarray(T_s), jnp.asarray(lms_s), *args)
+    np.testing.assert_allclose(np.asarray(r1), np.asarray(r0), atol=2e-3)
+    # A direction that is not the gauge moves the residuals.
+    T_s[1, :3, 3] += 0.01
+    r2, _, _ = _proj_residuals(jnp.asarray(T_s), jnp.asarray(lms_s), *args)
+    assert np.abs(np.asarray(r2) - np.asarray(r0)).max() > 0.5
+
+
+@pytest.mark.parametrize("depth", [False, True], ids=["reprojection", "depth"])
+def test_ba_window_converges_in_float32(depth):
+    # The observations are exact: a float64 LM ends near 5e-11 px^2.
+    # Without depth rows the scale is free, and before it was fixed the
+    # float32 solve put rounding noise along it and stalled near 1e-2.
+    problem, cam = _window_problem(depth)
+    res = bundle_adjust(problem, *cam, iterations=4)
+    assert float(res.initial_cost) > 5.0
+    assert float(res.final_cost) < 1e-4
+    err = np.abs(np.asarray(res.poses_wc) - np.asarray(problem.poses_wc)).max()
+    assert err < 1e-4, err
 
 
 def make_loop_graph(N=12, drift=0.02, seed=0):

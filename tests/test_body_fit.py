@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from perception_tpu.geometry import se3
-from perception_tpu.models.body_fit import (
+from perception.geometry import se3
+from perception.models.body_fit import (
     BODY15_TO_BODY25,
     BodyModel,
     fit_body,
@@ -100,8 +100,8 @@ def test_render_body_model_draws_capsules():
     to a non-trivial image with limbs covering many pixels."""
     import numpy as np
 
-    from perception_tpu.models.body_fit import BodyModel, forward_kinematics
-    from perception_tpu.models.viz import render_body_model
+    from perception.models.body_fit import BodyModel, forward_kinematics
+    from perception.models.viz import render_body_model
 
     import jax.numpy as jnp
 

@@ -3,8 +3,8 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.geometry import se3
-from perception_tpu.ops.calibration import (
+from perception.geometry import se3
+from perception.ops.calibration import (
     average_rotations,
     calibrate_camera,
     chessboard_object_points,
@@ -101,8 +101,8 @@ def test_joint_extrinsics_refine_recovers_rig():
     """Joint multi-camera refinement (cameraParameterEstimation.cpp's
     BA-flavored stage): noisy pairwise-style inits converge to the GT
     rig to sub-mm from 0.3-px corner noise."""
-    from perception_tpu.geometry import se3
-    from perception_tpu.ops.calibration import (
+    from perception.geometry import se3
+    from perception.ops.calibration import (
         chessboard_object_points,
         joint_extrinsics_refine,
     )

@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.geometry.camera import PinholeCamera, depth_from_u16
+from perception.geometry.camera import PinholeCamera, depth_from_u16
 
 
 def test_project_backproject_roundtrip():
@@ -99,7 +99,7 @@ class TestCameraInfoBinningRoi:
          0.0, 0.0, 1.0)
 
     def test_full_resolution_passthrough(self):
-        from perception_tpu.geometry.camera import CameraInfo, PinholeCamera
+        from perception.geometry.camera import CameraInfo, PinholeCamera
 
         info = CameraInfo(K=self.K, width=640, height=480)
         cam = PinholeCamera.from_camera_info(info)
@@ -108,7 +108,7 @@ class TestCameraInfoBinningRoi:
         np.testing.assert_allclose(float(cam.cx), self.K[2], rtol=1e-6)
 
     def test_binning_halves_model(self):
-        from perception_tpu.geometry.camera import CameraInfo, PinholeCamera
+        from perception.geometry.camera import CameraInfo, PinholeCamera
 
         info = CameraInfo(K=self.K, width=640, height=480,
                           binning_x=2, binning_y=2)
@@ -122,7 +122,7 @@ class TestCameraInfoBinningRoi:
         np.testing.assert_allclose(uv_bin, uv_full / 2.0, rtol=1e-5)
 
     def test_roi_shifts_principal_point(self):
-        from perception_tpu.geometry.camera import CameraInfo, PinholeCamera
+        from perception.geometry.camera import CameraInfo, PinholeCamera
 
         roi = (96, 64, 320, 240)
         info = CameraInfo(K=self.K, width=640, height=480, roi=roi)
@@ -135,7 +135,7 @@ class TestCameraInfoBinningRoi:
         np.testing.assert_allclose(uv_roi, uv_full - np.asarray(roi[:2]), rtol=1e-5)
 
     def test_roi_plus_binning_roundtrip(self):
-        from perception_tpu.geometry.camera import CameraInfo, PinholeCamera
+        from perception.geometry.camera import CameraInfo, PinholeCamera
 
         info = CameraInfo(K=self.K, width=640, height=480,
                           binning_x=2, binning_y=2, roi=(64, 32, 512, 384))
@@ -150,7 +150,7 @@ class TestCameraInfoBinningRoi:
     def test_roi_exceeding_sensor_rejected(self):
         import pytest
 
-        from perception_tpu.geometry.camera import CameraInfo, PinholeCamera
+        from perception.geometry.camera import CameraInfo, PinholeCamera
 
         info = CameraInfo(K=self.K, width=640, height=480,
                           roi=(400, 0, 320, 240))
@@ -161,7 +161,7 @@ class TestCameraInfoBinningRoi:
         import pytest
 
         cv2 = pytest.importorskip("cv2")
-        from perception_tpu.geometry.camera import PinholeCamera
+        from perception.geometry.camera import PinholeCamera
 
         dist = (0.12, -0.05, 0.001, -0.002, 0.01)
         cam = PinholeCamera.from_K(self.K, dist=dist)
@@ -186,7 +186,7 @@ class TestCameraInfoBinningRoi:
         assert abs(rect[2] - exp[2]) <= 2 and abs(rect[3] - exp[3]) <= 2
 
     def test_unrectify_roi_inverts(self):
-        from perception_tpu.geometry.camera import PinholeCamera
+        from perception.geometry.camera import PinholeCamera
 
         dist = (0.1, -0.02, 0.0, 0.0, 0.0)
         cam = PinholeCamera.from_K(self.K, dist=dist)

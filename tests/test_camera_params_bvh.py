@@ -1,8 +1,8 @@
 import numpy as np
 
-from perception_tpu.io.bvh import save_bvh
-from perception_tpu.io.camera_params import load_camera_rig, save_camera_rig
-from perception_tpu.models.pose import BODY_25_PAIRS, BODY_25_PARTS
+from perception.io.bvh import save_bvh
+from perception.io.camera_params import load_camera_rig, save_camera_rig
+from perception.models.pose import BODY_25_PAIRS, BODY_25_PARTS
 
 
 def test_camera_rig_roundtrip(tmp_path):

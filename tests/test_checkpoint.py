@@ -3,10 +3,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.geometry.camera import PinholeCamera
-from perception_tpu.models.slam.odometry import OdometryConfig
-from perception_tpu.models.slam.system import SlamConfig, slam_init
-from perception_tpu.utils.checkpoint import load_npz, load_orbax, save_npz, save_orbax
+from perception.geometry.camera import PinholeCamera
+from perception.models.slam.odometry import OdometryConfig
+from perception.models.slam.system import SlamConfig, slam_init
+from perception.utils.checkpoint import load_npz, load_orbax, save_npz, save_orbax
 
 
 def small_state():
@@ -66,7 +66,7 @@ def test_killed_host_resume_mid_stream(tmp_path):
     frames, and keys)."""
     from test_odometry import render_room_depth, small_camera, trajectory
 
-    from perception_tpu.models.slam.system import slam_step
+    from perception.models.slam.system import slam_step
 
     cam = small_camera()
     gt = trajectory(8)

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from perception_tpu.ops.chessboard import (
+from perception.ops.chessboard import (
     detect_chessboard_native,
     find_corner_candidates,
     order_grid,
@@ -87,7 +87,7 @@ class TestDetection:
 
 class TestCalibrationEndToEnd:
     def test_recovers_intrinsics_from_rendered_views(self):
-        from perception_tpu.ops.calibration import (
+        from perception.ops.calibration import (
             calibrate_camera,
             chessboard_object_points,
         )

@@ -1,17 +1,20 @@
 import json
+import os
 import subprocess
 import sys
 
 import numpy as np
 import pytest
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 def write_synthetic_depth(tmp_path):
     import cv2
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO)
     from benchmarks.scene import render_depth_tabletop
-    from perception_tpu.geometry.camera import PinholeCamera
+    from perception.geometry.camera import PinholeCamera
 
     cam = PinholeCamera.d435_depth()
     depth = render_depth_tabletop(cam, noise=0.001)
@@ -25,13 +28,13 @@ def write_synthetic_depth(tmp_path):
 def test_cli_cuboid_end_to_end(tmp_path):
     depth_png = write_synthetic_depth(tmp_path)
     proc = subprocess.run(
-        [sys.executable, "-m", "perception_tpu.cli", "cuboid",
+        [sys.executable, "-m", "perception.cli", "cuboid",
          "--depth", str(depth_png), "--depth-scale", "0.001"],
         capture_output=True, text=True, timeout=900,
-        cwd="/root/repo",
+        cwd=REPO,
         env={"PATH": "/usr/bin:/bin:/usr/local/bin",
              "JAX_PLATFORMS": "cpu",
-             "PYTHONPATH": "/root/repo"},
+             "PYTHONPATH": REPO},
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -44,10 +47,10 @@ def test_cli_cuboid_end_to_end(tmp_path):
 
 def test_cli_help():
     proc = subprocess.run(
-        [sys.executable, "-m", "perception_tpu.cli", "--help"],
-        capture_output=True, text=True, timeout=120, cwd="/root/repo",
+        [sys.executable, "-m", "perception.cli", "--help"],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
         env={"PATH": "/usr/bin:/bin:/usr/local/bin", "JAX_PLATFORMS": "cpu",
-             "PYTHONPATH": "/root/repo"},
+             "PYTHONPATH": REPO},
     )
     assert proc.returncode == 0
     for cmd in ("cuboid", "objects", "odometry", "slam", "pose", "bench"):
@@ -56,17 +59,17 @@ def test_cli_help():
 
 @pytest.mark.slow
 def test_cli_pose_trained_fixture(tmp_path):
-    from perception_tpu.models.pose_fixture import fixture_available
+    from perception.models.pose_fixture import fixture_available
 
     if not fixture_available():
         pytest.skip("pose fixture not trained")
     out_json = tmp_path / "people.json"
     proc = subprocess.run(
-        [sys.executable, "-m", "perception_tpu.cli", "pose", "--cpu",
+        [sys.executable, "-m", "perception.cli", "pose", "--cpu",
          "--seed", "3", "--out-json", str(out_json)],
-        capture_output=True, text=True, timeout=600, cwd="/root/repo",
+        capture_output=True, text=True, timeout=600, cwd=REPO,
         env={"PATH": "/usr/bin:/bin:/usr/local/bin", "JAX_PLATFORMS": "cpu",
-             "PYTHONPATH": "/root/repo"},
+             "PYTHONPATH": REPO},
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])

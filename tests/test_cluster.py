@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.ops.cluster import euclidean_cluster, extract_cluster
+from perception.ops.cluster import euclidean_cluster, extract_cluster
 
 
 def blob(rng, center, n, spread=0.005):

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from perception_tpu.geometry import se3
-from perception_tpu.models.face import (
+from perception.geometry import se3
+from perception.models.face import (
     AU_NAMES,
     ActionUnitHead,
     FaceLandmarkNet,
@@ -116,7 +116,7 @@ def test_normalize_landmarks_invariance():
 def test_au_gated_pose_mask():
     # Reference semantics (openface2_ros.cpp:467-476): pose published
     # only when AU02 (brow raiser) intensity > 2.0.
-    from perception_tpu.models.face import au_gated_pose_mask
+    from perception.models.face import au_gated_pose_mask
 
     i = np.zeros((3, len(AU_NAMES)), np.float32)
     au02 = AU_NAMES.index("AU02")

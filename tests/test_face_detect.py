@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.models.face_detect import (
+from perception.models.face_detect import (
     FaceDetectorNet,
     decode_detector_net,
     detect_faces,

@@ -15,20 +15,20 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from perception_tpu.models import face_fixture as FF
-from perception_tpu.models.face import (
+from perception.models import face_fixture as FF
+from perception.models.face import (
     au_gated_pose_mask,
     gaze_from_landmarks,
     head_pose_pnp,
     iou,
     normalize_landmarks,
 )
-from perception_tpu.models.face_data import (
+from perception.models.face_data import (
     crop_box_from_landmarks,
     render_face,
     sample_face,
 )
-from perception_tpu.models.hand import crop_image
+from perception.models.hand import crop_image
 
 pytestmark = [pytest.mark.slow, pytest.mark.skipif(
     not FF.fixture_available(), reason="face fixture not trained"
@@ -99,7 +99,7 @@ def test_face_pipeline_from_pixels_alone():
 
 def test_face_pipeline_is_jittable_end_to_end():
     """The whole pixels->outputs path compiles as one jitted function
-    (fixed shapes, no host round-trips) — the TPU-native property the
+    (fixed shapes, no host round-trips) — the fixed-shape property the
     reference's per-stage OpenFace pipeline lacks."""
     params = FF.load_fixture()
 

@@ -14,10 +14,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from perception_tpu.models import face_fixture as FF
-from perception_tpu.models import face_multi as FM
-from perception_tpu.models.face import iou
-from perception_tpu.models.face_data import (
+from perception.models import face_fixture as FF
+from perception.models import face_multi as FM
+from perception.models.face import iou
+from perception.models.face_data import (
     crop_box_from_landmarks,
     render_faces,
     sample_face_at,
@@ -176,7 +176,7 @@ def test_au02_gate_is_per_face():
 @fixture_needed
 @pytest.mark.slow
 def test_facade_returns_per_face_slots():
-    from perception_tpu.wrapper import (
+    from perception.wrapper import (
         Perception,
         WrapperStructFace,
         WrapperStructPose,

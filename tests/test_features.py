@@ -2,14 +2,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.geometry import se3
-from perception_tpu.ops.features import (
+from perception.geometry import se3
+from perception.ops.features import (
     Keypoints,
     brief_describe,
     fast_detect,
     match_descriptors,
 )
-from perception_tpu.ops.registration import ransac_rigid
+from perception.ops.registration import ransac_rigid
 
 
 def checkerboard(h=120, w=160, sq=20):

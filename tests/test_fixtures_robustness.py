@@ -10,8 +10,8 @@ pytestmark = pytest.mark.slow
 
 
 def test_pose_held_out_families():
-    from perception_tpu.models import pose_fixture as PF
-    from perception_tpu.models.pose_data import render_people, sample_skeletons
+    from perception.models import pose_fixture as PF
+    from perception.models.pose_data import render_people, sample_skeletons
 
     if not PF.fixture_available():
         pytest.skip("pose fixture missing")
@@ -38,8 +38,8 @@ def test_pose_held_out_families():
 
 
 def test_pose_noise_degradation_bounded():
-    from perception_tpu.models import pose_fixture as PF
-    from perception_tpu.models.pose_data import render_people, sample_skeletons
+    from perception.models import pose_fixture as PF
+    from perception.models.pose_data import render_people, sample_skeletons
 
     if not PF.fixture_available():
         pytest.skip("pose fixture missing")
@@ -55,8 +55,8 @@ def test_pose_noise_degradation_bounded():
 
 
 def test_face_hand_held_out():
-    from perception_tpu.models import face_fixture as FF
-    from perception_tpu.models import hand_fixture as HF
+    from perception.models import face_fixture as FF
+    from perception.models import hand_fixture as HF
 
     if not (FF.fixture_available() and HF.fixture_available()):
         pytest.skip("face/hand fixtures missing")

@@ -43,7 +43,7 @@ def check_grad(f, x, rtol=1e-4, atol=1e-6):
 
 class TestGradCheck:
     def test_se3_exp_transform(self):
-        from perception_tpu.geometry import se3
+        from perception.geometry import se3
 
         pts = jnp.asarray(np.random.default_rng(0).normal(size=(7, 3)))
 
@@ -55,7 +55,7 @@ class TestGradCheck:
 
     @pytest.mark.slow
     def test_body_fk(self):
-        from perception_tpu.models.body_fit import BodyModel, forward_kinematics
+        from perception.models.body_fit import BodyModel, forward_kinematics
 
         model = BodyModel.body15()
         target = jnp.asarray(np.random.default_rng(1).normal(size=(15, 3)))
@@ -70,7 +70,7 @@ class TestGradCheck:
 
     def test_reprojection_residual(self):
         # Pinhole projection grad wrt the 3-D point (the BA residual core).
-        from perception_tpu.geometry.camera import PinholeCamera
+        from perception.geometry.camera import PinholeCamera
 
         cam = PinholeCamera.d435_color()
         obs = jnp.asarray([300.0, 200.0], jnp.float64)
@@ -86,7 +86,7 @@ class TestGradCheck:
         # A tiny conv net's loss vs finite differences on a weight slice
         # — the literal Caffe layer-check, via the training loss.
         import flax.linen as nn
-        from perception_tpu.models.train import pose_loss
+        from perception.models.train import pose_loss
 
         class Tiny(nn.Module):
             @nn.compact

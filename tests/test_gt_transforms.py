@@ -3,8 +3,8 @@ reference's exact formatting (object_detection/templates/transforms.txt)."""
 
 import numpy as np
 
-from perception_tpu.geometry import se3
-from perception_tpu.io.gt_transforms import load_gt_transforms, save_gt_transforms
+from perception.geometry import se3
+from perception.io.gt_transforms import load_gt_transforms, save_gt_transforms
 
 
 def _random_pose(seed):

@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from perception_tpu.io.gui import (
+from perception.io.gui import (
     FrameDisplayer,
     Gui,
     Gui3D,
@@ -15,7 +15,7 @@ from perception_tpu.io.gui import (
 
 @pytest.fixture(autouse=True)
 def force_headless(monkeypatch):
-    monkeypatch.setenv("PERCEPTION_TPU_FORCE_HEADLESS", "1")
+    monkeypatch.setenv("PERCEPTION_FORCE_HEADLESS", "1")
 
 
 def test_display_available_respects_force():

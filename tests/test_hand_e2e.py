@@ -9,9 +9,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from perception_tpu.models import hand_fixture as HF
-from perception_tpu.models.hand import hand_roi_from_pose
-from perception_tpu.models.hand_data import hand_box, render_hand, sample_hand
+from perception.models import hand_fixture as HF
+from perception.models.hand import hand_roi_from_pose
+from perception.models.hand_data import hand_box, render_hand, sample_hand
 
 pytestmark = [pytest.mark.slow, pytest.mark.skipif(
     not HF.fixture_available(), reason="hand fixture not trained"

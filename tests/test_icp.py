@@ -2,10 +2,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.geometry import se3
-from perception_tpu.io.templates import cuboid_template
-from perception_tpu.ops.icp import icp_point_to_point, icp_point_to_plane, icp_batched
-from perception_tpu.ops.normals import normals_knn
+from perception.geometry import se3
+from perception.io.templates import cuboid_template
+from perception.ops.icp import icp_point_to_point, icp_point_to_plane, icp_batched
+from perception.ops.normals import normals_knn
 
 
 def make_pair(key, twist, n=800, noise=0.0):

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import cv2
 
-from perception_tpu.ops.image import (
+from perception.ops.image import (
     rgb_to_hsv_cv,
     in_range,
     erode,
@@ -11,8 +11,8 @@ from perception_tpu.ops.image import (
     largest_component_bbox,
     bilinear_resize,
 )
-from perception_tpu.models.color_detect import detect_red_object, red_mask
-from perception_tpu.models.bbox_filter import filter_by_rect, project_P, project_bbox
+from perception.models.color_detect import detect_red_object, red_mask
+from perception.models.bbox_filter import filter_by_rect, project_P, project_bbox
 
 
 def test_rgb_to_hsv_matches_opencv():

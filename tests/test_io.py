@@ -1,7 +1,7 @@
 import numpy as np
 
-from perception_tpu.io.pcd import read_pcd, write_pcd
-from perception_tpu.io.templates import cuboid_template, cuboid_vertices, CUBOID_EDGES
+from perception.io.pcd import read_pcd, write_pcd
+from perception.io.templates import cuboid_template, cuboid_vertices, CUBOID_EDGES
 
 
 def test_pcd_ascii_roundtrip(tmp_path):
@@ -78,7 +78,7 @@ def test_cuboid_vertices_and_edges():
 def test_ply_roundtrip(tmp_path):
     """PLY read/write (reference ply_viewer.py input format), ascii and
     binary, plus extra-property skipping."""
-    from perception_tpu.io.pcd import read_ply, write_ply
+    from perception.io.pcd import read_ply, write_ply
 
     pts = np.random.RandomState(0).randn(57, 3).astype(np.float32)
     for binary in (False, True):

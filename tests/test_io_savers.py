@@ -4,8 +4,8 @@ import socket
 import numpy as np
 import pytest
 
-from perception_tpu.io.imgcodec import array_to_image, convert_color, image_to_array
-from perception_tpu.io.savers import (
+from perception.io.imgcodec import array_to_image, convert_color, image_to_array
+from perception.io.savers import (
     UdpSender,
     coco_keypoint_results,
     load_heatmaps,
@@ -100,7 +100,7 @@ def test_unsupported_encoding():
 
 def test_rgb_color_table():
     """146 named colors, modulo wrap (rgb_colors.cpp getRGBColor)."""
-    from perception_tpu.io import colors
+    from perception.io import colors
 
     assert colors.N_COLORS == 146
     c0 = colors.get_rgb_color(0)
@@ -115,7 +115,7 @@ def test_rgb_color_table():
 
 
 def test_label_image_to_rgb8():
-    from perception_tpu.io.colors import label_image_to_rgb8
+    from perception.io.colors import label_image_to_rgb8
 
     labels = np.array([[-1, 0], [1, 200]], np.int32)
     img = label_image_to_rgb8(labels)
@@ -127,7 +127,7 @@ def test_label_image_to_rgb8():
 
 
 def test_cvt_color_for_display_depth_and_labels():
-    from perception_tpu.io.imgcodec import cvt_color_for_display
+    from perception.io.imgcodec import cvt_color_for_display
 
     depth = np.linspace(0.2, 2.0, 12, dtype=np.float32).reshape(3, 4)
     depth[0, 0] = np.nan
@@ -148,7 +148,7 @@ def test_cvt_color_for_display_depth_and_labels():
 
 def test_coco_variant_index_maps():
     """Foot/face/hand/car COCO output variants (cocoJsonSaver.cpp:98-181)."""
-    from perception_tpu.io.savers import coco_order_indexes
+    from perception.io.savers import coco_order_indexes
 
     # BODY_25 -> COCO-17 reorder starts at the nose and maps eyes/ears.
     body25 = coco_order_indexes(25, "body")
@@ -177,7 +177,7 @@ def test_coco_variant_index_maps():
 
 
 def test_coco_variant_results_subset():
-    from perception_tpu.io.savers import coco_keypoint_results
+    from perception.io.savers import coco_keypoint_results
 
     kps = np.zeros((1, 25, 3), np.float32)
     kps[0, :, 0] = np.arange(25)  # x encodes the model part id

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from perception_tpu.geometry import se3
-from perception_tpu.ops.normals import normals_knn
+from perception.geometry import se3
+from perception.ops.normals import normals_knn
 
 
 def _mesh(n, axis="mp"):
@@ -33,8 +33,8 @@ def _scene(key, m=4096, n=1024):
 
 def _single_gn(map_pts, map_nrm, map_mask, src, src_mask, T0,
                iterations=8, max_corr=0.25, huber=0.02, damping=1e-5):
-    from perception_tpu.ops import nn as _nn
-    from perception_tpu.ops.icp import _huber_weight
+    from perception.ops import nn as _nn
+    from perception.ops.icp import _huber_weight
 
     max_d2 = max_corr * max_corr
 
@@ -60,7 +60,7 @@ def _single_gn(map_pts, map_nrm, map_mask, src, src_mask, T0,
 def test_map_sharded_matches_single(n_dev):
     if len(jax.devices()) < n_dev:
         pytest.skip("needs virtual device mesh")
-    from perception_tpu.parallel.map_dist import (
+    from perception.parallel.map_dist import (
         make_map_sharded_gn,
         map_sharding,
     )
@@ -91,7 +91,7 @@ def test_map_sharded_trajectory():
     static sharded map, trajectory == single-device to tolerance."""
     if len(jax.devices()) < 8:
         pytest.skip("needs virtual device mesh")
-    from perception_tpu.parallel.map_dist import (
+    from perception.parallel.map_dist import (
         make_map_sharded_gn,
         map_sharding,
     )

@@ -3,16 +3,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from perception_tpu.geometry import se3
-from perception_tpu.geometry.camera import PinholeCamera
-from perception_tpu.io.templates import cuboid_template
-from perception_tpu.models.cuboid import (
+from perception.geometry import se3
+from perception.geometry.camera import PinholeCamera
+from perception.io.templates import cuboid_template
+from perception.models.cuboid import (
     CuboidConfig,
     cuboid_pipeline_step,
     segment_ground_plane,
 )
-from perception_tpu.models.objects import ObjectConfig, detect_object
-from perception_tpu.models.surface_frame import estimate_surface_frame
+from perception.models.objects import ObjectConfig, detect_object
+from perception.models.surface_frame import estimate_surface_frame
 
 
 def tabletop_scene(key_seed=0, obj_twists=((0.08, 0.04, 0.83, 0.0, 0.0, 0.4),),

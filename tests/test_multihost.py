@@ -3,7 +3,7 @@
 SURVEY.md §4(e)'s posture — the fake-backend multi-host capability the
 reference lacks. Two localhost processes each hold 4 virtual CPU
 devices; ``jax.distributed.initialize`` (via
-``perception_tpu.parallel.multihost``) joins them into an 8-device
+``perception.parallel.multihost``) joins them into an 8-device
 fleet, and the distributed ICP + BA steps run sharded across the
 process boundary with gloo collectives, asserting sharded == single.
 

@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.ops import nn
+from perception.ops import nn
 
 
 def brute_numpy(query, ref, ref_mask):

@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.geometry.camera import PinholeCamera
-from perception_tpu.ops.normals import normals_knn, normals_from_depth
+from perception.geometry.camera import PinholeCamera
+from perception.ops.normals import normals_knn, normals_from_depth
 
 
 def test_normals_knn_plane():

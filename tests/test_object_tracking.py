@@ -11,10 +11,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from perception_tpu.geometry.camera import PinholeCamera
-from perception_tpu.io.templates import cuboid_template
-from perception_tpu.models.objects import ObjectConfig
-from perception_tpu.models.object_tracking import (
+from perception.geometry.camera import PinholeCamera
+from perception.io.templates import cuboid_template
+from perception.models.objects import ObjectConfig
+from perception.models.object_tracking import (
     TrackingConfig,
     init_tracks,
     track_step_from_depth,

@@ -19,9 +19,9 @@ from benchmarks.clutter_scene import (
     render_depth_clutter,
     standard_clutter_poses,
 )
-from perception_tpu.geometry.camera import PinholeCamera
-from perception_tpu.io.gt_transforms import load_gt_transforms, save_gt_transforms
-from perception_tpu.models.objects import ObjectConfig, detect_object
+from perception.geometry.camera import PinholeCamera
+from perception.io.gt_transforms import load_gt_transforms, save_gt_transforms
+from perception.models.objects import ObjectConfig, detect_object
 
 # Long e2e sweeps: run with `-m slow` (core suite excludes them).
 pytestmark = pytest.mark.slow
@@ -108,7 +108,7 @@ def test_size_gate_rejects_absent_class(clutter):
     winner semantics, not return a bogus pose."""
     _, _, pts, mask = clutter
     # A big plate: far larger than any clutter cluster.
-    from perception_tpu.io.templates import box_surface_template
+    from perception.io.templates import box_surface_template
 
     tmpl = jnp.asarray(box_surface_template((0.3, 0.3, 0.02), 0.003))
     tm = jnp.ones(len(tmpl), bool)

@@ -3,10 +3,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from perception_tpu.geometry import se3
-from perception_tpu.parallel.mesh import make_mesh, frame_sharding, replicated
-from perception_tpu.parallel.icp_dist import make_distributed_icp_step
-from perception_tpu.ops.normals import normals_knn
+from perception.geometry import se3
+from perception.parallel.mesh import make_mesh, frame_sharding, replicated
+from perception.parallel.icp_dist import make_distributed_icp_step
+from perception.ops.normals import normals_knn
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from perception_tpu.geometry.camera import PinholeCamera
+from perception.geometry.camera import PinholeCamera
 
 # Long e2e sweeps: run with `-m slow` (core suite excludes them).
 pytestmark = pytest.mark.slow
@@ -49,7 +49,7 @@ class TestRectifyImage:
 class TestCompressed:
     def test_png_roundtrip_exact(self):
         pytest.importorskip("cv2")
-        from perception_tpu.io.imgcodec import array_to_compressed, compressed_to_array
+        from perception.io.imgcodec import array_to_compressed, compressed_to_array
 
         rng = np.random.default_rng(1)
         img = rng.integers(0, 255, (32, 48, 3), dtype=np.uint8)
@@ -60,7 +60,7 @@ class TestCompressed:
 
     def test_jpg_roundtrip_close(self):
         pytest.importorskip("cv2")
-        from perception_tpu.io.imgcodec import array_to_compressed, compressed_to_array
+        from perception.io.imgcodec import array_to_compressed, compressed_to_array
 
         img = np.full((32, 48, 3), 128, np.uint8)
         out = compressed_to_array(array_to_compressed(img, "jpg", quality=95))
@@ -70,7 +70,7 @@ class TestCompressed:
 
 class TestTopologies:
     def test_zoo_entries_consistent(self):
-        from perception_tpu.models.pose import TOPOLOGIES
+        from perception.models.pose import TOPOLOGIES
 
         for name, (parts, pairs) in TOPOLOGIES.items():
             assert pairs.ndim == 2 and pairs.shape[1] == 2, name
@@ -81,7 +81,7 @@ class TestTopologies:
 
     def test_posenet_builds_on_mpi(self):
         import jax
-        from perception_tpu.models.pose import TOPOLOGIES, PoseNet, init_posenet
+        from perception.models.pose import TOPOLOGIES, PoseNet, init_posenet
 
         params = init_posenet(jax.random.key(0), "MPI_15", net_hw=(32, 32))
         parts, pairs = TOPOLOGIES["MPI_15"]
@@ -104,7 +104,7 @@ class TestKeypointUtils:
         return jnp.asarray(kp), jnp.asarray(scores), jnp.asarray(mask)
 
     def test_rescale(self):
-        from perception_tpu.utils.keypoints import rescale_keypoints
+        from perception.utils.keypoints import rescale_keypoints
 
         kp, _, _ = self._people()
         out = rescale_keypoints(kp, 2.0)
@@ -112,7 +112,7 @@ class TestKeypointUtils:
         assert np.allclose(np.asarray(out)[..., 2], np.asarray(kp)[..., 2])
 
     def test_area(self):
-        from perception_tpu.utils.keypoints import keypoint_area
+        from perception.utils.keypoints import keypoint_area
 
         kp, _, _ = self._people()
         area = np.asarray(keypoint_area(kp))
@@ -121,7 +121,7 @@ class TestKeypointUtils:
         assert area[2] == 0.0
 
     def test_distance(self):
-        from perception_tpu.utils.keypoints import keypoints_person_distance
+        from perception.utils.keypoints import keypoints_person_distance
 
         kp, _, _ = self._people()
         d = keypoints_person_distance(kp[0], kp[1])
@@ -130,7 +130,7 @@ class TestKeypointUtils:
         assert np.isinf(float(d2))
 
     def test_keep_top_n(self):
-        from perception_tpu.utils.keypoints import keep_top_n_people
+        from perception.utils.keypoints import keep_top_n_people
 
         kp, scores, mask = self._people()
         okp, osc, omk = keep_top_n_people(kp, scores, mask, 2)
@@ -144,14 +144,14 @@ class TestKeypointUtils:
 
 class TestProducers:
     def test_flir_reader_gated(self):
-        from perception_tpu.io.producers import FlirReader
+        from perception.io.producers import FlirReader
 
         with pytest.raises(RuntimeError):
             FlirReader()
 
     def test_ip_camera_bad_url(self):
         pytest.importorskip("cv2")
-        from perception_tpu.io.producers import IpCameraReader
+        from perception.io.producers import IpCameraReader
 
         with pytest.raises((ConnectionError, Exception)):
             IpCameraReader("rtsp://127.0.0.1:1/none")
@@ -159,7 +159,7 @@ class TestProducers:
 
 class TestRender3D:
     def test_renders_cloud(self):
-        from perception_tpu.models.viz import render_points_3d
+        from perception.models.viz import render_points_3d
 
         rng = np.random.default_rng(0)
         pts = rng.uniform(-0.2, 0.2, (500, 3))
@@ -169,7 +169,7 @@ class TestRender3D:
         assert (img != 16).any()  # something was splatted
 
     def test_zbuffer_front_wins(self):
-        from perception_tpu.models.viz import render_points_3d
+        from perception.models.viz import render_points_3d
 
         # Two points on the same ray from the default eye; red is closer.
         eye = np.array([0.0, 0.0, -1.0])

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from perception_tpu.geometry import se3
-from perception_tpu.models.slam.backend import PoseGraph, optimize_pose_graph
-from perception_tpu.parallel.mesh import make_mesh
-from perception_tpu.parallel.pg_dist import (
+from perception.geometry import se3
+from perception.models.slam.backend import PoseGraph, optimize_pose_graph
+from perception.parallel.mesh import make_mesh
+from perception.parallel.pg_dist import (
     make_async_pose_graph_relaxer,
     make_distributed_pose_graph_step,
 )

@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.geometry import se3
-from perception_tpu.ops.pnp import pnp_gn, pnp_ransac
+from perception.geometry import se3
+from perception.ops.pnp import pnp_gn, pnp_ransac
 
 FX = FY = 300.0
 CX, CY = 160.0, 120.0

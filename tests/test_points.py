@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.ops import points as P
+from perception.ops import points as P
 
 
 def make_cloud(key, n=500, scale=1.0):

@@ -2,13 +2,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.ops.heatmap import gaussian_heatmap, nms_heatmap, resize_and_merge
-from perception_tpu.ops.paf import (
+from perception.ops.heatmap import gaussian_heatmap, nms_heatmap, resize_and_merge
+from perception.ops.paf import (
     assemble_people,
     greedy_match,
     paf_pair_scores,
 )
-from perception_tpu.models.pose import (
+from perception.models.pose import (
     BODY_25_PAIRS,
     BODY_25_PARTS,
     COCO_18_PAIRS,

@@ -10,7 +10,7 @@ import jax
 import numpy as np
 import pytest
 
-from perception_tpu.models.pose_fixture import (
+from perception.models.pose_fixture import (
     evaluate_pck,
     fixture_available,
     load_fixture,
@@ -33,13 +33,13 @@ def test_trained_net_multi_person_separation():
     """Two people in one frame must come out as two distinct skeletons."""
     import jax.numpy as jnp
 
-    from perception_tpu.models.pose import extract_people
-    from perception_tpu.models.pose_data import SkeletonScene, render_people
-    from perception_tpu.models.pose_fixture import FIXTURE_HW, tiny_posenet
+    from perception.models.pose import extract_people
+    from perception.models.pose_data import SkeletonScene, render_people
+    from perception.models.pose_fixture import FIXTURE_HW, tiny_posenet
 
     params = load_fixture()
     # Hand-placed, well-separated pair.
-    from perception_tpu.models.pose_data import _CANONICAL_MPI15
+    from perception.models.pose_data import _CANONICAL_MPI15
 
     base = np.asarray(_CANONICAL_MPI15)
     j1 = base * 60 + np.array([8.0, 30.0])

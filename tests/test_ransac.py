@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.ops.ransac import ransac_plane, point_plane_distance
+from perception.ops.ransac import ransac_plane, point_plane_distance
 
 
 def plane_cloud(key, n=1000, normal=(0, 0, 1.0), d=-0.5, noise=0.002, outliers=200):

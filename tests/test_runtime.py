@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from perception_tpu.io.pcd import read_pcd, write_pcd
-from perception_tpu.runtime import FramePrefetcher, native_available, read_pcd_native
+from perception.io.pcd import read_pcd, write_pcd
+from perception.runtime import FramePrefetcher, native_available, read_pcd_native
 
 
 def test_native_builds():

@@ -1,7 +1,7 @@
 import jax
 import pytest
 
-from perception_tpu.parallel.scaling import measure_scaling
+from perception.parallel.scaling import measure_scaling
 
 
 def test_scaling_harness_runs():

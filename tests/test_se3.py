@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from perception_tpu.geometry import se3
+from perception.geometry import se3
 
 
 def random_twists(key, n, rot_scale=1.0, trans_scale=1.0):

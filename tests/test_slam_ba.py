@@ -12,9 +12,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.models.slam.backend import BAProblem, bundle_adjust
-from perception_tpu.models.slam.system import run_slam, slam_init, slam_step
-from perception_tpu.geometry import se3
+from perception.models.slam.backend import BAProblem, bundle_adjust
+from perception.models.slam.system import run_slam, slam_init, slam_step
+from perception.geometry import se3
 
 from tests.test_slam_system import cam, make_seq, out_and_back_trajectory, slam_cfg
 import pytest

@@ -3,10 +3,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from perception_tpu.geometry import se3
-from perception_tpu.geometry.camera import PinholeCamera
-from perception_tpu.models.slam.odometry import OdometryConfig
-from perception_tpu.models.slam.system import (
+from perception.geometry import se3
+from perception.geometry.camera import PinholeCamera
+from perception.models.slam.odometry import OdometryConfig
+from perception.models.slam.system import (
     SlamConfig,
     correct_with_pose_graph,
     run_slam,
@@ -286,7 +286,7 @@ def test_loop_closure_reduces_organic_drift():
     import dataclasses
 
     from benchmarks.slam_scene import render_sequence, sweep_trajectory
-    from perception_tpu.utils.metrics import ate
+    from perception.utils.metrics import ate
 
     camera = cam()
     gt = sweep_trajectory(n=60)

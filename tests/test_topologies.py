@@ -5,7 +5,7 @@ the official COCO keypoint JSON round-trip (CocoJsonSaver capability)."""
 import numpy as np
 import pytest
 
-from perception_tpu.models.topologies import (
+from perception.models.topologies import (
     FULL_ZOO,
     REFERENCE_NUM_PARTS,
     get_topology,
@@ -71,7 +71,7 @@ def test_body_135_block_structure():
 def test_zoo_plugs_into_posenet():
     import jax
 
-    from perception_tpu.models.pose import PoseNet, lookup_topology
+    from perception.models.pose import PoseNet, lookup_topology
 
     parts, pairs = lookup_topology("BODY_25B")
     net = PoseNet(num_parts=len(parts), num_limbs=len(pairs), num_stages=1,
@@ -83,7 +83,7 @@ def test_zoo_plugs_into_posenet():
 
 
 def test_coco_json_roundtrip(tmp_path):
-    from perception_tpu.io.savers import (
+    from perception.io.savers import (
         coco_keypoint_results,
         coco_results_to_keypoints,
         load_coco_json,

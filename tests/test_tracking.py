@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.models.tracking import TrackerConfig, tracker_init, tracker_step
+from perception.models.tracking import TrackerConfig, tracker_init, tracker_step
 
 
 def textured(seed=0, h=120, w=160):

@@ -2,15 +2,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.models.hand import (
+from perception.models.hand import (
     HandLandmarkNet,
     NUM_HAND_LANDMARKS,
     crop_image,
     extract_hand,
     hand_roi_from_pose,
 )
-from perception_tpu.models.pose import PoseNet
-from perception_tpu.models.train import (
+from perception.models.pose import PoseNet
+from perception.models.train import (
     init_train_state,
     make_optimizer,
     make_train_step,

@@ -2,10 +2,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from perception_tpu.geometry.camera import PinholeCamera
-from perception_tpu.geometry.stereo import MISSING_Z, StereoCamera
-from perception_tpu.ops.lk import lk_track
-from perception_tpu.ops.triangulate import triangulate, triangulate_dlt
+from perception.geometry.camera import PinholeCamera
+from perception.geometry.stereo import MISSING_Z, StereoCamera
+from perception.ops.lk import lk_track
+from perception.ops.triangulate import triangulate, triangulate_dlt
 
 
 def camera_ring(n_cams=4, radius=2.0, fx=500.0):

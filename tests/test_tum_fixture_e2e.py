@@ -21,7 +21,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_tum_sequence_loads_and_associates():
-    from perception_tpu.io.tum import TumSequence, sequence_camera
+    from perception.io.tum import TumSequence, sequence_camera
 
     seq = TumSequence(FIXTURE, with_rgb=True)
     assert len(seq) == 30
@@ -39,7 +39,7 @@ def test_tum_sequence_loads_and_associates():
 def test_cli_slam_on_tum_fixture_reports_bounded_ate(capsys):
     """``cli slam --tum tests/fixtures/tum_mini`` — the config #4
     harness — runs from disk and lands ATE under 5 cm."""
-    from perception_tpu.cli import main
+    from perception.cli import main
 
     main(["slam", "--tum", str(FIXTURE), "--cpu"])
     lines = [
@@ -57,8 +57,8 @@ def test_cli_slam_on_tum_fixture_reports_bounded_ate(capsys):
 def test_cli_odometry_on_tum_fixture(capsys, tmp_path):
     """The odometry harness consumes the same fixture and writes a
     TUM-format trajectory that round-trips through the loader."""
-    from perception_tpu.cli import main
-    from perception_tpu.io.tum import read_file_list
+    from perception.cli import main
+    from perception.io.tum import read_file_list
 
     out = tmp_path / "traj.txt"
     main(["odometry", "--tum", str(FIXTURE), "--cpu", "--out", str(out)])

@@ -1,14 +1,14 @@
 import numpy as np
 import pytest
 
-from perception_tpu.io.tum import (
+from perception.io.tum import (
     TumSequence,
     associate,
     read_trajectory,
     tum_camera,
     write_trajectory,
 )
-from perception_tpu.utils.metrics import ate, align_umeyama, rpe
+from perception.utils.metrics import ate, align_umeyama, rpe
 
 
 def make_tum_dir(tmp_path, n=5):
@@ -56,7 +56,7 @@ def test_associate_greedy():
 def test_trajectory_roundtrip(tmp_path):
     import jax.numpy as jnp
 
-    from perception_tpu.geometry import se3
+    from perception.geometry import se3
 
     poses = np.asarray(se3.se3_exp(jnp.asarray(np.random.RandomState(0).randn(4, 6) * 0.3, jnp.float32)))
     ts = [1.0, 2.0, 3.0, 4.0]
@@ -81,7 +81,7 @@ def test_ate_alignment_removes_rigid_offset():
     # Estimate = gt moved by a rigid transform: ATE after alignment ~ 0.
     import jax.numpy as jnp
 
-    from perception_tpu.geometry import se3
+    from perception.geometry import se3
 
     W = np.asarray(se3.se3_exp(jnp.asarray([0.5, -0.2, 0.1, 0.3, 0.2, -0.4], jnp.float32)), np.float64)
     est = np.einsum("ij,njk->nik", W, gt)

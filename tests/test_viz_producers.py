@@ -1,16 +1,16 @@
 import numpy as np
 import pytest
 
-from perception_tpu.io.producers import ImageDirectoryReader, VideoReader
-from perception_tpu.io.savers import VideoWriter
-from perception_tpu.models.viz import (
+from perception.io.producers import ImageDirectoryReader, VideoReader
+from perception.io.savers import VideoWriter
+from perception.models.viz import (
     depth_to_vis,
     draw_bbox_2d,
     draw_cuboid_bbox,
     draw_skeletons,
     landmarks_overlay,
 )
-from perception_tpu.io.templates import CUBOID_EDGES
+from perception.io.templates import CUBOID_EDGES
 
 
 def test_draw_skeletons():

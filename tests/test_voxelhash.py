@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from perception_tpu.ops import nn as brute
-from perception_tpu.ops.voxelhash import (
+from perception.ops import nn as brute
+from perception.ops.voxelhash import (
     build,
     nearest_neighbor_voxelhash,
     query,

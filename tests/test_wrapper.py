@@ -1,11 +1,11 @@
-"""The Perception facade (perception_tpu/wrapper.py) — the reference
+"""The Perception facade (perception/wrapper.py) — the reference
 Wrapper API surface (wrapper.hpp:73-227): typed configure structs,
 construction-time sanity checks, exec / start+pop / emplace_and_pop."""
 
 import numpy as np
 import pytest
 
-from perception_tpu.wrapper import (
+from perception.wrapper import (
     Perception,
     PerceptionDatum,
     WrapperStructFace,
@@ -87,9 +87,9 @@ def test_async_start_stop():
 def test_fixture_pipelines_if_available():
     """Full pose+face+hand assembly when the trained fixtures exist
     (they are checked into tests/fixtures)."""
-    from perception_tpu.models import face_fixture as FF
-    from perception_tpu.models import hand_fixture as HF
-    from perception_tpu.models import pose_fixture as PF
+    from perception.models import face_fixture as FF
+    from perception.models import hand_fixture as HF
+    from perception.models import pose_fixture as PF
 
     if not (PF.fixture_available() and FF.fixture_available()
             and HF.fixture_available()):

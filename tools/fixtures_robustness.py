@@ -37,8 +37,8 @@ def pose_rows(n_scenes: int = 10):
     import jax.numpy as jnp
     import numpy as np
 
-    from perception_tpu.models import pose_fixture as PF
-    from perception_tpu.models.pose_data import render_people, sample_skeletons
+    from perception.models import pose_fixture as PF
+    from perception.models.pose_data import render_people, sample_skeletons
 
     params = PF.load_fixture()
     hw = PF.FIXTURE_HW
@@ -108,7 +108,7 @@ def pose_rows(n_scenes: int = 10):
 def face_rows(n_scenes: int = 12):
     import jax
 
-    from perception_tpu.models import face_fixture as FF
+    from perception.models import face_fixture as FF
 
     params = FF.load_fixture()
 
@@ -130,7 +130,7 @@ def face_rows(n_scenes: int = 12):
 def hand_rows(n_scenes: int = 12):
     import jax
 
-    from perception_tpu.models import hand_fixture as HF
+    from perception.models import hand_fixture as HF
 
     params = HF.load_fixture()
 

@@ -4,7 +4,7 @@ Real TUM RGB-D data is egress-blocked in this environment; a rendered
 sequence WRITTEN IN THE TUM FORMAT (rgb/ + depth/ 16-bit PNG at 5000
 counts/m + rgb.txt/depth.txt/groundtruth.txt, plus the repo's
 calibration.txt extension for the reduced resolution) still proves the
-config #4 harness wiring end to end: ``python -m perception_tpu.cli
+config #4 harness wiring end to end: ``python -m perception.cli
 slam --tum tests/fixtures/tum_mini`` loads it through the standard
 association path and reports ATE against groundtruth.txt.
 
@@ -37,9 +37,9 @@ def main() -> int:
     import jax.numpy as jnp
 
     from benchmarks.slam_scene import render_textured_room, sweep_trajectory
-    from perception_tpu.geometry import se3
-    from perception_tpu.geometry.camera import PinholeCamera
-    from perception_tpu.io.tum import TUM_DEPTH_SCALE
+    from perception.geometry import se3
+    from perception.geometry.camera import PinholeCamera
+    from perception.io.tum import TUM_DEPTH_SCALE
 
     W, H = args.width, args.height
     fx = 307.0 * W / 320.0

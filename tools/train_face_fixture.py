@@ -1,7 +1,7 @@
 """Train the tiny face fixture (landmark net + AU head) on synthetic
 face scenes.
 
-Runs on whatever backend JAX picks (TPU when available; pass --cpu to
+Runs on whatever backend JAX picks (the GPU when available; pass --cpu to
 force CPU). Writes tests/fixtures/facenet_tiny.msgpack when the
 landmark-error target is reached.
 
@@ -42,9 +42,9 @@ def main() -> int:
     import jax.numpy as jnp
     import optax
 
-    from perception_tpu.models.face import normalize_landmarks
-    from perception_tpu.models.face_data import make_face_batch
-    from perception_tpu.models.face_fixture import (
+    from perception.models.face import normalize_landmarks
+    from perception.models.face_data import make_face_batch
+    from perception.models.face_fixture import (
         FIXTURE_CROP,
         FIXTURE_HW,
         FIXTURE_PATH,
@@ -60,7 +60,7 @@ def main() -> int:
     n_params = sum(x.size for x in jax.tree_util.tree_leaves(params))
     print(f"params: {n_params/1e3:.1f}k", flush=True)
 
-    from perception_tpu.models.face_fixture import tiny_detector
+    from perception.models.face_fixture import tiny_detector
 
     lm_net = tiny_facenet()
     au_net = tiny_au_head()

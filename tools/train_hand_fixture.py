@@ -34,8 +34,8 @@ def main() -> int:
     import jax.numpy as jnp
     import optax
 
-    from perception_tpu.models.hand_data import make_hand_batch
-    from perception_tpu.models.hand_fixture import (
+    from perception.models.hand_data import make_hand_batch
+    from perception.models.hand_fixture import (
         FIXTURE_PATH,
         evaluate,
         init_tiny,

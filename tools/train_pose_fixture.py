@@ -1,6 +1,6 @@
 """Train the tiny PoseNet fixture on synthetic skeleton scenes.
 
-Runs on whatever backend JAX picks (TPU when available; pass --cpu to
+Runs on whatever backend JAX picks (the GPU when available; pass --cpu to
 force CPU). Writes tests/fixtures/posenet_mpi15_tiny.msgpack when the
 decode-level PCK target is reached.
 
@@ -41,8 +41,8 @@ def main() -> int:
     import jax.numpy as jnp
     import optax
 
-    from perception_tpu.models.pose_data import make_batch
-    from perception_tpu.models.pose_fixture import (
+    from perception.models.pose_data import make_batch
+    from perception.models.pose_fixture import (
         FIXTURE_HW,
         FIXTURE_PATH,
         evaluate_pck,
@@ -50,7 +50,7 @@ def main() -> int:
         save_fixture,
         tiny_posenet,
     )
-    from perception_tpu.models.train import (
+    from perception.models.train import (
         init_train_state,
         make_train_step,
         pose_loss,
@@ -83,8 +83,8 @@ def main() -> int:
     t0 = time.time()
     import numpy as np
 
-    from perception_tpu.models.pose_data import render_people, sample_skeletons
-    from perception_tpu.models.pose_fixture import pck_on_images
+    from perception.models.pose_data import render_people, sample_skeletons
+    from perception.models.pose_fixture import pck_on_images
 
     def eval_crowded(params, key, n=10):
         # The held-out crowded family (4 people) whose recall the r4
